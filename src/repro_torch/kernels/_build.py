@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface, ``build/kernels/lib<name>-<digest>.so`` under the repo
+root; the digest covers the source, the shared headers and the flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is.  The
+build happens at first use, on the machine with the card; ``build_all``
+starts one ``nvcc`` per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("fused_engine", "push_relabel_phase")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+BUILD_LOGS: dict[str, str] = {}     # name -> nvcc/ptxas output of the build
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels build only where the CUDA toolkit is")
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every missing library among ``names``, one ``nvcc`` process
+    per source, all started together."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = lib_path(n).with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    errors = []
+    for n, (p, tmp) in procs.items():
+        out, _ = p.communicate()
+        BUILD_LOGS[n] = out
+        if p.returncode != 0:
+            errors.append(f"nvcc failed on {n}.cu (exit {p.returncode}):\n"
+                          f"{out}")
+        else:
+            os.replace(tmp, lib_path(n))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        lib.pr_error_string.argtypes = [ctypes.c_int]
+        lib.pr_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.pr_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

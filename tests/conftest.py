@@ -29,3 +29,8 @@ def fresh_compile_cache():
     required, -k subsets safe)."""
     jax.clear_caches()
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
