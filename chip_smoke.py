@@ -18,9 +18,9 @@ Phases (any failure raises and exits non-zero):
    launch count == the solve's ``engine_launches``, the same solve with
    the plain "torch" backend (equal flow, state and counters), and the
    flow against scipy's maximum_flow;
-4. multi-sweep path: a 128x128 interactive-segmentation image with 4x4
-   regions, the unfused engine on kernel B against the fused engine on
-   kernel A;
+4. multi-sweep path: the paper's 128x128 synthetic grid at connectivity 8
+   (E = 8) with 4x4 regions, the unfused engine on kernel B against the
+   fused engine on kernel A;
 5. times: per launch of each kernel and of its plain version at the main
    path's shapes, the solves, and a profiled main-path solve (device time
    by kernel, busy and idle share).
@@ -46,6 +46,8 @@ sys.path.insert(0, str(ROOT / "src"))
 DEVICE = "cuda"
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 67e12    # 32-bit CUDA-core rate (the fp32 peak)
+MAIN_SIDE, MAIN_REGIONS = 1024, 8    # 1,048,576 vertices in 8x8 regions
+MULTI_SIDE, MULTI_REGIONS = 128, 4   # E = 8, several sweeps
 
 
 def log(*a):
@@ -270,15 +272,6 @@ def profile_solve(opts, problem, part):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--size", type=int, default=1024,
-                    help="side of the main path's image")
-    ap.add_argument("--regions", type=int, default=8,
-                    help="regions per side of the main path's image")
-    ap.add_argument("--torch-size", type=int, default=1024,
-                    help="side of the image the plain 'torch' rerun solves "
-                         "(regions keep the main path's size)")
-    ap.add_argument("--multi-size", type=int, default=128,
-                    help="side of the multi-sweep image (4x4 regions)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
     args = ap.parse_args(argv)
@@ -289,8 +282,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.core.partition import grid_partition
     from repro_torch.core.solver import SolverOptions
-    from repro_torch.data.grids import (segmentation_grid,
-                                        segmentation_seeds_grid)
+    from repro_torch.data.grids import segmentation_grid, synthetic_grid
     from repro_torch.kernels import _build
     from repro_torch.kernels import push_relabel as pr
 
@@ -309,7 +301,7 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     # ---- main path instance ----
-    side, reg = args.size, args.regions
+    side, reg = MAIN_SIDE, MAIN_REGIONS
     problem = segmentation_grid(side, side, seed=0)
     part = grid_partition((side, side), (reg, reg))
     main_in, main_dinf = first_stage_inputs(problem, part, dev)
@@ -351,21 +343,14 @@ def main(argv=None) -> int:
     if not res.converged:
         raise AssertionError("main path did not converge")
     log(f"  certificate: cut cost == flow == {res.flow_value}")
-    ts = args.torch_size
-    if ts == side:
-        t_problem, t_part, t_ref = problem, part, res
-    else:
-        t_problem = segmentation_grid(ts, ts, seed=0)
-        t_part = grid_partition((ts, ts), (ts * reg // side,) * 2)
-        t_ref, _, _ = timed_solve(opts, t_problem, t_part)
     t_opts = SolverOptions(method="ard", parallel=True,
                            engine_backend="torch", engine_chunk_iters=8,
                            check=True, device=DEVICE)
-    t_res, torch_s, t_counts = timed_solve(t_opts, t_problem, t_part)
+    t_res, torch_s, t_counts = timed_solve(t_opts, problem, part)
     if sum(t_counts.values()):
         raise AssertionError("the plain 'torch' backend launched a kernel")
-    same_solve(t_ref, t_res, f"cuda vs torch at {ts}x{ts}")
-    log(f"  torch backend at {ts}x{ts}: equal flow, state and counters")
+    same_solve(res, t_res, "cuda vs torch")
+    log("  torch backend: equal flow, state and counters")
     t0 = time.perf_counter()
     want = scipy_maxflow(problem)
     if want != res.flow_value:
@@ -374,10 +359,11 @@ def main(argv=None) -> int:
         f" s)")
 
     # ---- phase 4: a multi-sweep path, kernel B against kernel A ----
-    ms = args.multi_size
-    m_problem = segmentation_seeds_grid(ms, ms, seed=0)
-    m_part = grid_partition((ms, ms), (4, 4))
-    log(f"[multi-sweep] segmentation_seeds_grid({ms},{ms}) 4x4 regions")
+    ms, mreg = MULTI_SIDE, MULTI_REGIONS
+    m_problem = synthetic_grid(ms, ms, connectivity=8)
+    m_part = grid_partition((ms, ms), (mreg, mreg))
+    log(f"[multi-sweep] synthetic_grid({ms},{ms}, connectivity=8) "
+        f"{mreg}x{mreg} regions")
     u_opts = SolverOptions(engine_backend="cuda", engine_chunk_iters=None,
                            device=DEVICE)
     u_res, unfused_s, u_counts = timed_solve(u_opts, m_problem, m_part)
@@ -392,6 +378,11 @@ def main(argv=None) -> int:
         raise AssertionError("the multi-sweep path took one sweep")
     log(f"  unfused (kernel B) == fused (kernel A) over "
         f"{u_res.stats.sweeps} sweeps")
+    m_want = scipy_maxflow(m_problem)
+    if m_want != u_res.flow_value:
+        raise AssertionError(f"multi-sweep flow {u_res.flow_value} != scipy "
+                             f"{m_want}")
+    log(f"  scipy maximum_flow: {m_want} (equal)")
 
     # ---- phase 5: times at the main path's shapes ----
     log(f"[times] per launch at K={K} V={V} E={E}, {args.reps} launches "
@@ -438,9 +429,9 @@ def main(argv=None) -> int:
         log(f"  {name}: {ms:.4f} ms/launch, plain {plain:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, {ops:.0f} ops)")
     log(f"  kernel A launch ran {a_iters} region-iterations")
-    log(f"  main path solve: cuda {cuda_s:.3f} s, torch {torch_s:.3f} s "
-        f"({ts}x{ts}); multi-sweep: unfused cuda {unfused_s:.3f} s, fused "
-        f"cuda {fused_s:.3f} s")
+    log(f"  main path solve: cuda {cuda_s:.3f} s, torch {torch_s:.3f} s; "
+        f"multi-sweep: unfused cuda {unfused_s:.3f} s, fused cuda "
+        f"{fused_s:.3f} s")
 
     profile_solve(opts, problem, part)
 
