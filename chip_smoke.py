@@ -23,7 +23,21 @@ Phases (any failure raises and exits non-zero):
    fused engine on kernel A;
 5. times: per launch of each kernel and of its plain version at the main
    path's shapes, the solves, and a profiled main-path solve (device time
-   by kernel, busy and idle share).
+   by kernel, busy and idle share);
+6. flash: the flash-attention kernel against its plain version on the
+   card, causal, at the LM slice's shape (bf16, B=1, H=32, S=4096, D=96)
+   and at small shapes (f32 and bf16; GQA, MQA, decode, ragged, Sq > Sk);
+7. LM forward: phi3-mini-3.8b at full width, all 32 layers, random
+   weights from a seeded generator, ``forward(mode="train")`` on B=1,
+   S=4096: in f32 the flash forward against the plain ``_sdpa`` forward
+   (TF32 off), f32 prefill + decode against the train pass, then the same
+   weights in bf16: 32 flash launches per forward, finite logits, time;
+8. LM serving: ``greedy_generate`` in bf16, 4 prompts of 512 tokens, 32
+   new tokens (prefill ms, ms per decode step, tokens/s), and the same
+   run profiled (busy and idle share);
+9. times: the flash kernel per launch at the slice's shape against its
+   bound, its plain version and SDPA; a profiled bf16 forward (flash
+   against matmul device time, busy and idle share).
 
 The last two lines are the card (nvidia-smi) and ``{"ok": true, "device":
 {...}}``; the line before them is the kernels' JSON report.  Where torch
@@ -46,8 +60,11 @@ sys.path.insert(0, str(ROOT / "src"))
 DEVICE = "cuda"
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_INT32_OPS_PER_S = 67e12    # 32-bit CUDA-core rate (the fp32 peak)
+H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 MAIN_SIDE, MAIN_REGIONS = 1024, 8    # 1,048,576 vertices in 8x8 regions
 MULTI_SIDE, MULTI_REGIONS = 128, 4   # E = 8, several sweeps
+LM_ARCH, LM_SEQ = "phi3-mini-3.8b", 4096     # all 32 layers, full width
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 
 
 def log(*a):
@@ -233,20 +250,20 @@ def timed_solve(opts, problem, part):
     return res, sec, counts
 
 
-def profile_solve(opts, problem, part):
-    """The solve once more under torch.profiler: device time by kernel and
-    the device's busy share of the wall time."""
+def profile_run(fn, what):
+    """``fn()`` once under torch.profiler: device time by kernel and the
+    device's busy share of the wall time.  Returns ``(rows, busy_s)``,
+    rows ``(device_s, kernel name, count)``; ``busy_s`` is 0 where the
+    profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.solver import Solver
 
-    handle = Solver(opts).prepare(problem, part)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handle.solve()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []      # device-side events only (kernels, copies, fills):
@@ -260,14 +277,225 @@ def profile_solve(opts, problem, part):
             rows.append((us / 1e6, ev.key, ev.count))
     busy = sum(r[0] for r in rows)     # one stream: kernels do not overlap
     if busy == 0:
-        log(f"  profiled solve: wall {wall:.3f} s; the profiler saw no "
+        log(f"  profiled {what}: wall {wall:.3f} s; the profiler saw no "
             f"device time (busy share not measured)")
-        return
-    log(f"  profiled solve: wall {wall:.3f} s, device busy {busy:.3f} s "
+        return rows, 0.0
+    log(f"  profiled {what}: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for sec, key, count in sorted(rows, reverse=True)[:8]:
         log(f"    {sec:9.4f} s {100 * sec / busy:5.1f}%  x{count:<7d} "
             f"{key[:70]}")
+    return rows, busy
+
+
+# --------------------------------------------------------------------------
+# LM slice: flash kernel, full-width forward, greedy serving
+# --------------------------------------------------------------------------
+
+# B, H, Hkv, Sq, Sk, D: GQA, MQA, decode, ragged, Sq > Sk, D = 128, the
+# smoke config's D = 16 and phi3's D = 96
+FLASH_SMALL = [(2, 4, 2, 128, 128, 64), (1, 4, 1, 96, 96, 32),
+               (1, 2, 1, 1, 128, 32), (1, 1, 1, 37, 53, 16),
+               (1, 2, 1, 80, 48, 32), (1, 2, 2, 200, 200, 128),
+               (2, 4, 2, 40, 40, 16), (1, 3, 3, 300, 300, 96)]
+# f32: the same sums in another order; bf16: one unit in the last place of
+# the bf16 output (2^-8 relative)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# f32 logits of the full-width forward, flash kernel against plain _sdpa:
+# 32 layers of f32 sums in another order, relative to the largest logit
+FORWARD_REL_TOL = 1e-3
+
+
+def check_flash(dev, slice_shape):
+    """Phase 6: the flash kernel against its plain version on the card;
+    returns the max abs error at the slice's shape (bf16)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    slice_err = None
+    for shape in [slice_shape] + FLASH_SMALL:
+        B, H, Hkv, Sq, Sk, D = shape
+        dtypes = (["bfloat16"] if shape == slice_shape
+                  else ["float32", "bfloat16"])
+        for dt in dtypes:
+            mk = lambda *s: torch.randn(s, generator=g, device=dev,
+                                        dtype=getattr(torch, dt))
+            q, k, v = mk(B, H, Sq, D), mk(B, Hkv, Sk, D), mk(B, Hkv, Sk, D)
+            got = fa.flash_attention(q, k, v, causal=True)
+            want = fa.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            lim = FLASH_TOL[dt] * (1 + want.float().abs())
+            ok = bool((diff <= lim).all())
+            log(f"  flash {shape} {dt}: max_abs_err={err:.3g} "
+                f"(tol {FLASH_TOL[dt]} abs+rel) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash kernel differs from its plain "
+                                     f"version at {shape} {dt}")
+            if shape == slice_shape:
+                slice_err = err
+    return slice_err
+
+
+def lm_forward(model, tokens):
+    """One full-sequence forward; returns (logits, flash launches)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    logits, _ = model({"tokens": tokens}, mode="train")
+    torch.cuda.synchronize()
+    return logits, fa.launch_counts()["flash_attention"]
+
+
+def lm_phases(dev, reps):
+    """Phases 6-9 of the LM slice; returns the flash kernel's report."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.serve import greedy_generate
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), use_flash_attention=True)
+    L, H, D = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    S = LM_SEQ
+    slice_shape = (1, H, cfg.num_kv_heads, S, S, D)
+
+    log(f"[flash] kernel against its plain version (causal) at the slice's "
+        f"shape and small shapes")
+    slice_err = check_flash(dev, slice_shape)
+
+    # ---- phase 7: full-sequence forward at full width ----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = model_lib.init_params(cfg, generator=g, dtype=torch.float32,
+                                  device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[forward] {cfg.name}: {L} layers, d_model {cfg.d_model}, {H} "
+        f"heads x {D}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params} parameters (f32 init {time.perf_counter() - t0:.1f} s)")
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                           device=dev)
+    flash32, n32 = lm_forward(model, tokens)
+    if n32 != L:
+        raise AssertionError(f"f32 forward launched the flash kernel {n32} "
+                             f"times, want {L}")
+    model.cfg = dataclasses.replace(cfg, use_flash_attention=False)
+    plain32, n_plain = lm_forward(model, tokens)
+    model.cfg = cfg
+    if n_plain:
+        raise AssertionError("the plain _sdpa forward launched the kernel")
+    scale = float(plain32.abs().max())
+    ferr = float((flash32 - plain32).abs().max())
+    log(f"  f32 forward B=1 S={S}: flash (x{n32} launches) against plain "
+        f"_sdpa: max_abs_err={ferr:.3g}, max |logit| {scale:.3g}, "
+        f"rel {ferr / scale:.3g} (tol {FORWARD_REL_TOL}); TF32 off")
+    if not (torch.isfinite(flash32).all() and ferr <= FORWARD_REL_TOL * scale):
+        raise AssertionError("f32 flash forward differs from plain _sdpa")
+    del flash32, plain32
+
+    # f32 serving against the train pass (tests/test_models_smoke.py:71)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g,
+                         device=dev)
+    tlog, _ = model({"tokens": toks})
+    cache = model_lib.init_cache(cfg, 2, 32, torch.float32, dev)
+    plog, cache = model({"tokens": toks[:, :23]}, mode="prefill",
+                        cache=cache)
+    dlog, cache = model({"tokens": toks[:, 23:]}, mode="decode", cache=cache)
+    torch.testing.assert_close(plog, tlog[:, 22], atol=3e-4, rtol=1e-3)
+    torch.testing.assert_close(dlog, tlog[:, 23], atol=3e-4, rtol=1e-3)
+    log(f"  f32 prefill(23)+decode(1) against the train pass, B=2: max "
+        f"abs diff {float((plog - tlog[:, 22]).abs().max()):.3g} / "
+        f"{float((dlog - tlog[:, 23]).abs().max()):.3g} (atol 3e-4, "
+        f"rtol 1e-3)")
+    del tlog, plog, dlog, cache
+
+    model.to(torch.bfloat16)             # the same weights, f32 freed
+    torch.cuda.empty_cache()
+    _, n16 = lm_forward(model, tokens)           # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits, n16 = lm_forward(model, tokens)
+        times.append(time.perf_counter() - t0)
+    if n16 != L or not torch.isfinite(logits).all():
+        raise AssertionError(f"bf16 forward: {n16} flash launches, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    fwd_s = min(times)
+    log(f"  bf16 forward B=1 S={S}: {fwd_s * 1e3:.1f} ms (best of "
+        f"{[round(t * 1e3, 1) for t in times]} ms), {S / fwd_s:.0f} "
+        f"tokens/s, flash launches {n16}, logits finite")
+    del logits
+
+    # ---- phase 8: greedy serving at full width, bf16 ----
+    B, P, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                            device=dev)
+
+    def serve(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_generate(model, prompts, steps, P + new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    serve(2)                                     # warm-up
+    first, pre_s = serve(1)
+    out, gen_s = serve(new)
+    if not torch.equal(out[:, :1], first) or out.shape != (B, new):
+        raise AssertionError("greedy generation is not deterministic")
+    step_ms = (gen_s - pre_s) / (new - 1) * 1e3
+    log(f"[serving] greedy_generate bf16, {B} prompts x {P} tokens, {new} "
+        f"new: prefill {pre_s * 1e3:.1f} ms, {step_ms:.2f} ms per decode "
+        f"step, {B * new / gen_s:.1f} tokens/s ({gen_s:.3f} s in all)")
+    log(f"  sample: {out[0, :12].tolist()}")
+    profile_run(lambda: serve(new), "greedy serving")
+
+    # ---- phase 9: times ----
+    q, k, v = (torch.randn(1, n, S, D, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+               for n in (H, cfg.num_kv_heads, cfg.num_kv_heads))
+    f_ms = time_ms(lambda: fa.flash_attention(q, k, v), reps)
+    f_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                      max(2, reps // 4))
+    f_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=cfg.num_kv_heads != H), reps)
+    pairs = S * (S + 1) // 2                 # visible (query, key) pairs
+    f_ops = 4 * H * D * pairs
+    f_bytes = 2 * (2 * H + 2 * cfg.num_kv_heads) * S * D
+    t_ops = f_ops / H100_BF16_FLOP_PER_S * 1e3
+    t_bytes = f_bytes / H100_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"[times] flash at B=1 H={H} S={S} D={D} bf16 causal: {f_ms:.4f} "
+        f"ms/launch, plain {f_plain:.4f} ms, SDPA {f_lib:.4f} ms, bound "
+        f"{bound:.4f} ms ({f_ops} FLOP, {f_bytes} bytes); "
+        f"{100 * bound / f_ms:.1f}% of bound")
+    rows, busy = profile_run(lambda: lm_forward(model, tokens),
+                             "bf16 forward")
+    if busy:
+        flash_s = sum(r[0] for r in rows if "flash_fwd" in r[1])
+        gemm_s = sum(r[0] for r in rows
+                     if any(w in r[1].lower() for w in
+                            ("gemm", "nvjet", "xmma", "cutlass")))
+        log(f"  forward device time: flash {flash_s:.4f} s "
+            f"({100 * flash_s / busy:.1f}%), matmuls {gemm_s:.4f} s "
+            f"({100 * gemm_s / busy:.1f}%), other "
+            f"{busy - flash_s - gemm_s:.4f} s")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:109",
+                launches=n16, max_abs_err=slice_err, ms=f_ms,
+                plain_ms=f_plain, bound_ms=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=f_lib)
 
 
 def main(argv=None) -> int:
@@ -281,7 +509,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.core.partition import grid_partition
-    from repro_torch.core.solver import SolverOptions
+    from repro_torch.core.solver import Solver, SolverOptions
     from repro_torch.data.grids import segmentation_grid, synthetic_grid
     from repro_torch.kernels import _build
     from repro_torch.kernels import push_relabel as pr
@@ -433,7 +661,12 @@ def main(argv=None) -> int:
         f"multi-sweep: unfused cuda {unfused_s:.3f} s, fused cuda "
         f"{fused_s:.3f} s")
 
-    profile_solve(opts, problem, part)
+    handle = Solver(opts).prepare(problem, part)
+    profile_run(handle.solve, "main-path solve")
+    del handle
+
+    # ---- phases 6-9: the LM slice ----
+    report.append(lm_phases(dev, args.reps))
 
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())

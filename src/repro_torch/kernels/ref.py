@@ -7,9 +7,11 @@
   in torch, written independently of the kernel wrappers' plain versions.
 * ``fused_iteration_ref`` — one complete fused engine iteration (push
   compute, intra-region scatter, post-push relabel) in torch.
+* ``attention_ref`` — numerically stable softmax attention with f32
+  accumulation and a bottom-right aligned causal mask.
 
-Both torch oracles take one region (``[V, E]`` / ``[V]``) with bool masks,
-like their counterparts in ``repro/kernels/ref.py``.
+The two push/relabel oracles take one region (``[V, E]`` / ``[V]``) with
+bool masks, like their counterparts in ``repro/kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -152,3 +154,26 @@ def fused_iteration_ref(cf, sink_cf, excess, lab, nbr, rev_slot, intra,
     relabel_sum = torch.where(vmask, new_lab - lab, 0).sum(dtype=_I32)
     return (cf, sink_cf, excess, new_lab, d_arc - d_intra,
             d_sink.sum(dtype=_I32), relabel_sum)
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  scale: float | None = None):
+    """Numerically-stable reference attention (f32 accumulation).
+
+    q ``[..., Tq, D]``, k/v ``[..., Tk, D]`` with the same leading dims;
+    the causal mask is aligned bottom-right (query i sees key j iff
+    ``j <= i + Tk - Tq``).  A row that sees no key gets the ``-1e30`` fill's
+    uniform average, as in the reference.
+    """
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    logits = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    if causal:
+        Tq, Tk = logits.shape[-2:]
+        mask = torch.ones((Tq, Tk), dtype=torch.bool,
+                          device=q.device).tril(Tk - Tq)
+        logits = torch.where(mask, logits, -1e30)
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.einsum("...qk,...kd->...qd", probs, vf).to(q.dtype)
